@@ -1,4 +1,4 @@
-"""rs-bann-tpu: a TPU-native Bayesian neural network engine for genomic prediction.
+"""rs-bann-tpu: a compiled Bayesian neural network engine for genomic prediction.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the
 ``medical-genomics-group/rs-bann`` reference (Rust + ArrayFire): grouped sparse
@@ -6,7 +6,7 @@ branch networks (one small MLP per SNP group, summed at the output) trained with
 blocked Gibbs-within-MCMC — per-branch HMC over weights/biases plus conjugate
 Gibbs draws for all precision hyperparameters.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
   * All branches live in stacked, padded pytrees ``[G, ...]`` with masks;
     the per-branch object graph of the reference collapses into pure arrays.
   * The Gibbs-over-branches sweep is a single jitted ``lax.scan`` (sequential,
@@ -16,8 +16,9 @@ Design (TPU-first, not a port):
     reference's hand-written backprop becomes a numerical cross-check.
   * Chains are a vmapped batch axis; branches and chains shard over a
     ``jax.sharding.Mesh`` with XLA collectives for the shared residual.
-  * Genotypes stay 2-bit packed (PLINK .bed bytes) in HBM; a Pallas kernel
-    fuses unpack + standardize for genome-scale inputs.
+  * Genotypes stay 2-bit packed (PLINK .bed bytes) in device memory; a
+    Pallas kernel fuses the decode into the layer-0 matmul for genome-scale
+    inputs.
 """
 
 __version__ = "0.1.0"

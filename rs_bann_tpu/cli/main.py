@@ -12,9 +12,9 @@ args.json which downstream commands re-read to recover the model type
 (rs-bann.rs:168-173), predict/branch-r2 scan the sorted models dir and emit
 CSV to stdout (rs-bann.rs:276-312).
 
-TPU extensions: --num-chains, --seed, --update-mode {sequential,parallel},
+Extensions: --num-chains, --seed, --update-mode {sequential,parallel,hybrid},
 --cpu (force the CPU backend; the default backend is whatever jax selects,
-i.e. the TPU when present).
+i.e. the GPU when present).
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def _add_mcmc_args(p: argparse.ArgumentParser):
     # internal knobs the reference keeps off-CLI (mcmc_cfg.rs:28-30)
     p.add_argument("--sampled-output-bias", action="store_true")
     p.add_argument("--effect-sizes", action="store_true")
-    # TPU extensions
+    # extensions
     p.add_argument("--num-chains", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--update-mode",
@@ -100,8 +100,8 @@ def _add_mcmc_args(p: argparse.ArgumentParser):
                    "precisions (0 disables)")
     p.add_argument("--per-chain-block-perm", action="store_true",
                    help="hybrid mode: draw each chain's block permutation "
-                   "from its own carry key (pre-r5 behavior; disables the "
-                   "chain-folded trajectory kernel for hybrid)")
+                   "from its own carry key (pre-r5 behavior; the block's X "
+                   "is then gathered per chain)")
     p.add_argument("--gd-warmup", type=int, default=0,
                    help="gradient-descent sweeps before sampling (MAP start)")
     p.add_argument("--mass-adaptation", action="store_true",
@@ -175,22 +175,22 @@ def _add_mcmc_args(p: argparse.ArgumentParser):
                    help="resume exactly from a checkpoint.npz (incl. RNG)")
     p.add_argument(
         "--packed-genotypes", action="store_true",
-        help="keep genotypes 2-bit packed in HBM with fused decode (16x less "
-        "device memory; best for genome-scale branches)",
+        help="keep genotypes 2-bit packed on the device, decoded inside the "
+        "layer-0 matmul (16x less device memory; best for genome-scale "
+        "branches)",
     )
     p.add_argument(
         "--feat-major", action="store_true",
-        help="feature-major dense genotype layout [G, m_pad, n]: n occupies "
-        "the 128-lane minor dim in every sweep matmul — cuts MXU lane "
-        "padding for small branch widths and halves X memory vs the "
-        "sample-major dense form (mutually exclusive with "
+        help="feature-major dense genotype layout [G, m_pad, n]: n is the "
+        "minor dim in every sweep matmul (mutually exclusive with "
         "--packed-genotypes)",
     )
     p.add_argument(
         "--x-bf16", action="store_true",
         help="store feature-major genotypes in bfloat16 (halves the "
-        "dominant layer-0 HBM stream; the default-precision MXU rounds "
-        "f32 inputs to bf16 anyway — requires --feat-major)",
+        "dominant layer-0 memory traffic; X is rounded to bf16 and the "
+        "layer-0 dots run in bf16 with f32 accumulation — requires "
+        "--feat-major)",
     )
 
 
@@ -845,7 +845,7 @@ def _ref_model_type_of(path: Path, explicit):
 
 def cmd_import_ref_model(args):
     """Convert reference bincode model file(s) to framework npz."""
-    _force_cpu_if(True)  # pure host conversion; never touch the TPU
+    _force_cpu_if(True)  # pure host conversion; never touch the accelerator
     from ..io import refmodel
 
     src = Path(args.path)
@@ -901,7 +901,7 @@ def cmd_available_backends(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rs-bann-tpu",
-        description="TPU-native Bayesian branch networks for genomic prediction",
+        description="Bayesian branch networks for genomic prediction",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -996,8 +996,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--cpu", action="store_true")
     g.add_argument(
         "--packed-genotypes", action="store_true",
-        help="keep genotypes 2-bit packed in HBM (fused decode) — the only "
-        "form that fits UKB-scale cohorts on one chip",
+        help="keep genotypes 2-bit packed on the device (fused decode) — "
+        "the only form that fits UKB-scale cohorts on one card",
     )
     g.set_defaults(func=cmd_predict)
 
@@ -1009,8 +1009,8 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--cpu", action="store_true")
         g.add_argument(
             "--packed-genotypes", action="store_true",
-            help="keep genotypes 2-bit packed in HBM (fused decode) — the "
-                 "only form that fits UKB-scale n",
+            help="keep genotypes 2-bit packed on the device (fused decode) "
+                 "— the only form that fits UKB-scale n",
         )
 
     g = sub.add_parser("branch-r2", help="Per-branch r2 for each saved model.")
@@ -1024,7 +1024,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--cpu", action="store_true")
     g.add_argument(
         "--packed-genotypes", action="store_true",
-        help="keep genotypes 2-bit packed in HBM (fused decode)",
+        help="keep genotypes 2-bit packed on the device (fused decode)",
     )
     g.set_defaults(func=cmd_activations)
 
@@ -1091,6 +1091,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     args = build_parser().parse_args(argv)
     level = logging.DEBUG if getattr(args, "debug_prints", False) or getattr(
         args, "debug", False

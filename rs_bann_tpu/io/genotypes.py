@@ -68,14 +68,12 @@ class CompressedGenotypes:
     def to_feature_major(
         self, arch: NetArch, y: Optional[np.ndarray] = None, dtype=np.float32
     ) -> StackedData:
-        """Feature-major dense FeatX [G, m_pad, n]: the MXU-lane-friendly
-        layout for the compiled sweep (models/density.FeatX) — halves
-        physical X HBM vs to_stacked for m_pad < 128 and cuts the branch
-        matmuls' lane padding.
+        """Feature-major dense FeatX [G, m_pad, n]: the large n axis is
+        minor in every sweep matmul (models/density.FeatX).
 
         ``dtype``: X storage dtype. bfloat16 halves the dominant layer-0
-        HBM stream (the default-precision MXU rounds f32 inputs to bf16
-        anyway; accumulation stays f32 — see models/density.matmul)."""
+        memory traffic at the cost of rounding X; accumulation stays f32
+        (see models/density.matmul)."""
         import jax.numpy as jnp
 
         from ..models.density import FeatX

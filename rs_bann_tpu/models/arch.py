@@ -15,9 +15,9 @@ Layer convention (same as the reference):
     pure dot product (reference ``forward_feed``,
     branch_sampler.rs:743-782).
 
-Branches are ragged (different m_g, h_g, s_g). On TPU we pad every branch to
-the max across branches (rounded up to a lane-friendly multiple) and carry the
-true counts; masks are derived on the fly.
+Branches are ragged (different m_g, h_g, s_g). Every branch is padded to
+the max across branches (rounded up to a multiple of 8) and the true counts
+are carried; masks are derived on the fly.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ class NetArch:
     s: tuple  # true summary layer width per branch, len G
     depth: int  # number of hidden layers (excluding summary layer)
     activation: str = "tanh"
-    pad_multiple: int = 8  # sublane granularity for f32
+    pad_multiple: int = 8  # padded widths are multiples of this
 
     # ------------------------------------------------------------------ sizes
     @property

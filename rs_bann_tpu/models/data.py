@@ -2,14 +2,14 @@
 
 The reference re-decodes and re-uploads each branch's standardized genotype
 submatrix from host RAM on every single branch update
-(/root/reference/src/io/bed.rs:325-355, net.rs:265). On TPU we keep the data
-HBM-resident across the whole run in one of two forms:
+(reference src/io/bed.rs:325-355, net.rs:265). Here the data stays
+resident in device memory across the whole run in one of two forms:
 
   * ``StackedData``: materialized standardized X as [G, n, m_pad] f32 —
     best for small/medium problems (the entire sweep reads it in place).
   * packed form (see ops/packed_matmul.py): the 2-bit PLINK bed bytes stay
-    compressed in HBM and are fused-decoded per branch — 16x less HBM for
-    genome-scale inputs.
+    compressed in device memory and are decoded inside the layer-0 matmul —
+    16x less memory for genome-scale inputs.
 """
 
 from __future__ import annotations
@@ -64,13 +64,11 @@ def stack_standardized(
     """Pad per-branch matrices into [G, n, m_pad]; optionally standardize
     columns to mean 0 / std 1 (population std, matching io/bed.rs:231-242).
 
-    ``dtype``: storage dtype of X. bfloat16 halves the HBM streaming cost of
+    ``dtype``: storage dtype of X. bfloat16 halves the memory traffic of
     the dominant layer-0 reads; matmuls accumulate in f32 either way.
 
-    ``feature_major``: store X transposed as a FeatX ([G, m_pad, n]) — the
-    MXU-lane-friendly layout for the compiled sweep (see
-    models/density.FeatX); halves physical HBM for m_pad below 128 (the
-    minor dim of a [.., n, m_pad] array is padded to 128 lanes on TPU).
+    ``feature_major``: store X transposed as a FeatX ([G, m_pad, n]), with
+    the large n axis minor in every sweep matmul (see models/density.FeatX).
     """
     n = columns[0].shape[0]
     G = arch.num_branches

@@ -1,33 +1,39 @@
-"""Fused 2-bit genotype decode + matmul (Pallas TPU kernel).
+"""Fused 2-bit genotype decode + matmul (Pallas kernels through Triton).
 
 The reference decodes bed bytes on the host and uploads a dense standardized
 f32 submatrix per branch update (/root/reference/src/io/bed.rs:325-355). Here
-the 2-bit codes stay packed in HBM — 16x less memory AND 16x less HBM traffic
-than f32, which is what makes genome-scale inputs (460k x 10k ≈ 1.15 GB
-packed vs 18 GB dense) resident and the streaming of X essentially free —
-and each matmul tile unpacks bytes to genotypes in VMEM right before the MXU.
+the 2-bit codes stay packed in device memory — 16x less memory and 16x less
+traffic than f32, which is what makes genome-scale inputs (460k x 10k ≈
+1.15 GB packed vs 18 GB dense) resident — and each kernel block decodes its
+tile of bytes in registers right before the tensor-core dot. The decoded
+[m, n] f32 block is never written to device memory.
 
-Layout: PLINK's byte order interleaves 4 consecutive individuals per byte;
-unpacking that in-kernel needs an interleaving reshape the TPU vector unit
-cannot lower. We therefore repack on the host into a *group-strided* layout:
-individuals are grouped in blocks of 512; within a group, byte j holds
-individuals (j, j+128, j+256, j+384) in bit pairs (0, 2, 4, 6). In-kernel
-decode of a [TM, 128]-byte tile is then four shift-mask ops and one
-lane-aligned concatenate -> [TM, 512] genotypes in natural order.
+Layout: PLINK's byte order interleaves 4 consecutive individuals per byte.
+The host repacks into a *group-strided* layout: individuals are grouped in
+blocks of 512; within a group, byte j holds individuals (j, j+128, j+256,
+j+384) in bit pairs (0, 2, 4, 6). Decoding bit pair q of a [rows, 128]-byte
+tile gives the genotypes of 128 consecutive individuals, so each of the four
+parts feeds one dot whose rows are a contiguous block of the output.
 
 Standardization never appears in the kernel: for standardized X_std with
 column means μ and stds σ,
 
     X_std @ W = decode(bytes) @ (W / σ[:,None]) − (μ/σ) @ W
 
-so the caller folds 1/σ into the weights and subtracts a rank-1 row
-correction (models/density.py PackedX). The same unpack with the transposed
-contraction is the custom-VJP backward:
+so the caller folds 1/σ into the weights and the rank-1 correction into a
+per-feature offset (models/density.py PackedX). The same decode with the
+transposed contraction is the custom-VJP backward:
 
     d/dW [decode(bytes) @ W] = decode(bytes) contracted with the cotangent
 
 2-bit decode (io/bed.rs lookup semantics): code 00→2, 01→0 (missing,
 impute-beforehand contract), 10→1, 11→0.
+
+Precision: decoded genotypes {0, 1, 2} are exact in bf16, so each kernel dot
+splits its f32 operand into three bf16 pieces (8 + 8 + 8 mantissa bits) and
+runs three bf16 tensor-core dots with f32 accumulation: every product is
+exact and the result matches an f32 (``Precision.HIGHEST``) dot up to f32
+summation order.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 
 GROUP = 512  # individuals per strided group
-GBYTES = GROUP // 4  # bytes per group (= lane width 128)
+GBYTES = GROUP // 4  # bytes per group
 
 # genotype value -> 2-bit code and back (io/bed.rs:16)
 _VALUE_TO_CODE = np.array([0b11, 0b10, 0b00], np.uint8)
@@ -92,60 +98,23 @@ def unpack_strided(bytes_mb: jax.Array, n: int) -> jax.Array:
     return _decode_codes(codes).reshape(m, ngroups * GROUP)[:, :n]
 
 
-def _kernel_decode(byte_tile):
-    """[TM, 128·k] strided bytes -> [TM, 512·k] genotypes (TPU-lowerable)."""
-    b = byte_tile.astype(jnp.int32)
-    parts = [(b >> (2 * i)) & 0b11 for i in range(4)]
-    codes = jnp.concatenate(parts, axis=-1)
-    return _decode_codes(codes)
+# ------------------------------------------------------- plain reference
 
-
-def _kernel_decode_part(b_int32, q):
-    """Part q of a strided byte tile: [TM, 128] int32 -> [TM, 128] f32.
-
-    Value map {00->2, 01->0, 10->1, 11->0} as a 2-bit LUT packed into the
-    constant 18 = 0b01_00_00_10 ((18 >> 2c) & 3): 5 int vector ops + one
-    convert per genotype — cheaper than the compare/select form, and
-    keeping the four parts separate (one MXU dot each) avoids the wide
-    concatenate. Individuals of part q are rows q*128..q*128+127 of the
-    512-individual group, so per-part dot outputs/inputs are contiguous
-    row blocks.
-    """
-    c = (b_int32 >> (2 * q)) & 0b11
-    return ((18 >> (c + c)) & 0b11).astype(jnp.float32)
-
-
-# ------------------------------------------------------------- jnp fallback
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _packed_matmul_ref(bytes_mb, a, n):
     """Z[n, k] = decode(bytes)[m, :n] as [n, m] @ A[m, k]."""
     dec = unpack_strided(bytes_mb, n)  # [m, n]
     return jax.lax.dot_general(
-        dec, a, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
+        dec, a, (((0,), (0,)), ((), ())), precision=_HIGHEST,
+        preferred_element_type=jnp.float32,
     )
 
 
-# ------------------------------------------------------------ pallas kernel
-
-_TILE_N = GROUP  # individuals per tile (one strided group = 128 bytes)
-_TILE_M = 512  # max markers per tile (refetch of the [n,k] operand ∝ m/TM)
-_TILE_K = 128  # output features per tile
-
-
-def _tile_m(m):
-    """Largest marker tile ≤ _TILE_M dividing m (m is padded to a multiple
-    of 128 by the arch layout). Bigger tiles cut the backward pass's
-    per-m-tile refetch of the [n, k] cotangent and the grid-step count."""
-    for tm in (512, 384, 256, 128):
-        if tm <= _TILE_M and m % tm == 0:
-            return tm
-    return min(m, 128)
-
-
 # Activations whose derivative is recoverable from the *output* value alone.
-# These can be fused into the kernel epilogue with only the activation saved
-# as the VJP residual (silu needs the pre-activation, so it is not fused).
+# These fuse into the kernel epilogue with only the activation saved as the
+# VJP residual (silu needs the pre-activation, so it is not fused).
 FUSED_ACTIVATIONS = ("identity", "relu", "leaky_relu", "tanh")
 
 
@@ -175,294 +144,245 @@ def _act_prime_from_out(act, out):
     raise ValueError(f"activation not fusable: {act}")
 
 
-def _fwd_kernel(bytes_ref, a_ref, out_ref, acc_ref, *, n_mtiles):
-    """grid (n_tiles, k_tiles, m_tiles): acc[TN, TK] += dec(TM,TN)^T A(TM,TK)."""
-    from jax.experimental import pallas as pl
-
-    m_ix = pl.program_id(2)
-
-    @pl.when(m_ix == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    b = bytes_ref[:].astype(jnp.int32)
-    a = a_ref[:]
-    for q in range(4):
-        dec = _kernel_decode_part(b, q)  # [TM, 128]
-        acc_ref[q * 128 : (q + 1) * 128, :] += jax.lax.dot_general(
-            dec, a, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    @pl.when(m_ix == n_mtiles - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
+def _linear_ref(bytes_mb, a, off, n, act):
+    return _act_apply(act, _packed_matmul_ref(bytes_mb, a, n) + off[None, :])
 
 
-def _fwd_fused_kernel(bytes_ref, a_ref, off_ref, out_ref, acc_ref, *, n_mtiles, act):
-    """Like _fwd_kernel, plus epilogue out = act(acc + off) at the last m-tile.
-
-    Fusing the per-feature offset (bias − μ/σ rank-1 correction) and the
-    activation here removes the extra HBM round trips of the layer-0
-    pre-activation [n, k] that a separate XLA elementwise pass would cost —
-    the dominant traffic at genome scale (profiled: the unfused packed sweep
-    trailed dense ~2x purely on fusion loss at the pallas_call boundary).
-    """
-    from jax.experimental import pallas as pl
-
-    m_ix = pl.program_id(2)
-
-    @pl.when(m_ix == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    b = bytes_ref[:].astype(jnp.int32)
-    a = a_ref[:]
-    for q in range(4):
-        dec = _kernel_decode_part(b, q)
-        acc_ref[q * 128 : (q + 1) * 128, :] += jax.lax.dot_general(
-            dec, a, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    @pl.when(m_ix == n_mtiles - 1)
-    def _():
-        out_ref[:] = _act_apply(act, acc_ref[:] + off_ref[:])
+def _linear_bwd_ref(bytes_mb, g, out, n, act):
+    """(da, d_off) of packed_linear for cotangent g at output out."""
+    dz = g * _act_prime_from_out(act, out)
+    da = jax.lax.dot_general(
+        unpack_strided(bytes_mb, n), dz, (((1,), (0,)), ((), ())),
+        precision=_HIGHEST, preferred_element_type=jnp.float32,
+    )
+    return da, jnp.sum(dz, axis=0)
 
 
-def _bwd_kernel(bytes_ref, g_ref, out_ref, acc_ref, *, n_ntiles):
-    """grid (m_tiles, k_tiles, n_tiles): acc[TM, TK] += dec(TM,TN) G(TN,TK)."""
-    from jax.experimental import pallas as pl
+# ---------------------------------------------------------- triton kernels
+#
+# Forward: one block per 512-individual group owns its [512, k] output tile
+# and loops over the marker axis in BM-row tiles, so every output element is
+# written once. Backward: the reduction runs over individuals, so one block
+# per (chunk of CHUNK groups, MB marker rows) loops over its groups and
+# writes a [MB, k] partial that XLA sums afterwards (no atomics: seeded runs
+# stay reproducible); the chunks give the card enough blocks to fill its SMs
+# at biobank n. CHUNK and the warp count were chosen on an H100 at the
+# genome recipe's shapes (PERF.md).
 
-    n_ix = pl.program_id(2)
-
-    @pl.when(n_ix == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    b = bytes_ref[:].astype(jnp.int32)
-    for q in range(4):
-        dec = _kernel_decode_part(b, q)  # [TM, 128]
-        acc_ref[:] += jax.lax.dot_general(
-            dec, g_ref[q * 128 : (q + 1) * 128, :], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    @pl.when(n_ix == n_ntiles - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
-
-
-def _bwd_fused_kernel(
-    bytes_ref, g_ref, res_ref, out_ref, doff_ref, acc_ref, dacc_ref, *, n_ntiles, act
-):
-    """Backward with the activation derivative fused in: the pre-activation
-    cotangent dz = g ⊙ h'(a) is formed in VMEM from the saved activation
-    tile, so dz never round-trips HBM (grid (1, k_tiles, n_tiles); the
-    caller guarantees a single m-tile). The per-feature offset gradient
-    d_off = Σₙ dz is accumulated as a second output — as a separate XLA
-    pass it is a sublane reduction that wastes 1−k/128 of the vector width
-    AND re-reads g and the saved activation from HBM."""
-    from jax.experimental import pallas as pl
-
-    n_ix = pl.program_id(2)
-
-    @pl.when(n_ix == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-        dacc_ref[:] = jnp.zeros_like(dacc_ref)
-
-    dz = g_ref[:] * _act_prime_from_out(act, res_ref[:])  # [TN, TK]
-    dacc_ref[:] += jnp.sum(dz, axis=0, keepdims=True)
-    b = bytes_ref[:].astype(jnp.int32)
-    for q in range(4):
-        dec = _kernel_decode_part(b, q)
-        acc_ref[:] += jax.lax.dot_general(
-            dec, dz[q * 128 : (q + 1) * 128, :], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    @pl.when(n_ix == n_ntiles - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
-        doff_ref[:] = dacc_ref[:]
+_BM = 32  # marker rows per decode tile (tensor-core dot depth >= 16)
+_MB = 128  # marker rows per backward block (wider branches add blocks)
+_CHUNK = 4  # strided groups (x512 individuals) per backward block
+_NUM_WARPS = 4
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def _pallas_fwd(bytes_mb, a, n, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, B = bytes_mb.shape
-    k = a.shape[1]
-    assert B % GBYTES == 0 and n <= B * 4
-    tm = _tile_m(m)
-    tk = min(_TILE_K, k)
-    grid = (B // GBYTES, _cdiv(k, tk), _cdiv(m, tm))
-    out = pl.pallas_call(
-        functools.partial(_fwd_kernel, n_mtiles=grid[2]),
-        out_shape=jax.ShapeDtypeStruct((B * 4, k), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, GBYTES), lambda ni, ki, mi: (mi, ni)),
-            pl.BlockSpec((tm, tk), lambda ni, ki, mi: (mi, ki)),
-        ],
-        out_specs=pl.BlockSpec((_TILE_N, tk), lambda ni, ki, mi: (ni, ki)),
-        scratch_shapes=[pltpu.VMEM((_TILE_N, tk), jnp.float32)],
-        interpret=interpret,
-    )(bytes_mb, a)
-    return out[:n]
+def _kpad(k):
+    """Feature width inside the kernel: a power of two >= 16 (dot width)."""
+    return max(16, 1 << (int(k) - 1).bit_length())
 
 
-def _pallas_fwd_fused(bytes_mb, a, off, n, act, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def _decode_part(b, q):
+    """Bit pair q of an int32 byte tile -> genotypes as bf16 (exact).
 
-    m, B = bytes_mb.shape
-    k = a.shape[1]
-    assert B % GBYTES == 0 and n <= B * 4
-    tm = _tile_m(m)
-    tk = min(_TILE_K, k)
-    grid = (B // GBYTES, _cdiv(k, tk), _cdiv(m, tm))
-    out = pl.pallas_call(
-        functools.partial(_fwd_fused_kernel, n_mtiles=grid[2], act=act),
-        out_shape=jax.ShapeDtypeStruct((B * 4, k), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, GBYTES), lambda ni, ki, mi: (mi, ni)),
-            pl.BlockSpec((tm, tk), lambda ni, ki, mi: (mi, ki)),
-            pl.BlockSpec((1, tk), lambda ni, ki, mi: (0, ki)),
-        ],
-        out_specs=pl.BlockSpec((_TILE_N, tk), lambda ni, ki, mi: (ni, ki)),
-        scratch_shapes=[pltpu.VMEM((_TILE_N, tk), jnp.float32)],
-        interpret=interpret,
-    )(bytes_mb, a, off.reshape(1, k))
-    return out[:n]
-
-
-def _pallas_bwd(bytes_mb, g_pad, n, interpret=False):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, B = bytes_mb.shape
-    k = g_pad.shape[1]
-    assert B % GBYTES == 0
-    tm = _tile_m(m)
-    tk = min(_TILE_K, k)
-    grid = (_cdiv(m, tm), _cdiv(k, tk), B // GBYTES)
-    return pl.pallas_call(
-        functools.partial(_bwd_kernel, n_ntiles=grid[2]),
-        out_shape=jax.ShapeDtypeStruct((m, k), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, GBYTES), lambda mi, ki, ni: (mi, ni)),
-            pl.BlockSpec((_TILE_N, tk), lambda mi, ki, ni: (ni, ki)),
-        ],
-        out_specs=pl.BlockSpec((tm, tk), lambda mi, ki, ni: (mi, ki)),
-        scratch_shapes=[pltpu.VMEM((tm, tk), jnp.float32)],
-        interpret=interpret,
-    )(bytes_mb, g_pad)
-
-
-def _pallas_bwd_fused(bytes_mb, g_pad, res_pad, n, act, interpret=False):
-    """(da[m, k], d_off[1, k]) = (dec(bytes) @ dz, Σₙ dz) for
-    dz = g ⊙ h'(res), with h' and the column sum applied in-kernel.
-    Requires m to fit one marker tile (callers fall back otherwise)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, B = bytes_mb.shape
-    k = g_pad.shape[1]
-    assert B % GBYTES == 0
-    tm = _tile_m(m)
-    assert tm == m, "single m-tile required for the fused d_off output"
-    tk = min(_TILE_K, k)
-    grid = (1, _cdiv(k, tk), B // GBYTES)
-    return pl.pallas_call(
-        functools.partial(_bwd_fused_kernel, n_ntiles=grid[2], act=act),
-        out_shape=(
-            jax.ShapeDtypeStruct((m, k), jnp.float32),
-            jax.ShapeDtypeStruct((1, k), jnp.float32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, GBYTES), lambda mi, ki, ni: (mi, ni)),
-            pl.BlockSpec((_TILE_N, tk), lambda mi, ki, ni: (ni, ki)),
-            pl.BlockSpec((_TILE_N, tk), lambda mi, ki, ni: (ni, ki)),
-        ],
-        out_specs=(
-            pl.BlockSpec((tm, tk), lambda mi, ki, ni: (mi, ki)),
-            pl.BlockSpec((1, tk), lambda mi, ki, ni: (0, ki)),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((tm, tk), jnp.float32),
-            pltpu.VMEM((1, tk), jnp.float32),
-        ],
-        interpret=interpret,
-    )(bytes_mb, g_pad, res_pad)
-
-
-def _use_pallas():
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def packed_matmul(bytes_mb, a, n):
-    """Z[n, k] = decode_strided(bytes_mb)[m, :n] (as [n, m]) @ a[m, k].
-
-    ``bytes_mb`` must be in the group-strided layout (pack_strided).
-    Differentiable in ``a`` only. Individuals beyond n decode to 0 (missing
-    code), so the forward slice and the zero-padded backward are exact.
+    Value map {00->2, 01->0, 10->1, 11->0} as a 2-bit lookup packed into the
+    constant 18 = 0b01_00_00_10: v = (18 >> 2c) & 3.
     """
-    if _use_pallas():
-        return _pallas_fwd(bytes_mb, a, n)
-    return _packed_matmul_ref(bytes_mb, a, n)
+    c = (b >> (2 * q)) & 0b11
+    return ((18 >> (c + c)) & 0b11).astype(jnp.float32).astype(jnp.bfloat16)
 
 
-def _fwd(bytes_mb, a, n):
-    return packed_matmul(bytes_mb, a, n), bytes_mb
+def _split3(x):
+    """f32 -> three bf16 pieces, smallest first, summing to x (24 bits)."""
+    hi = x.astype(jnp.bfloat16)
+    r = x - hi.astype(jnp.float32)
+    mid = r.astype(jnp.bfloat16)
+    lo = (r - mid.astype(jnp.float32)).astype(jnp.bfloat16)
+    return lo, mid, hi
 
 
-def _bwd(n, bytes_mb, gz):
-    # pad the cotangent to B*4 rows with zeros: padded individuals contribute 0
-    B4 = bytes_mb.shape[1] * 4
-    gz_pad = jnp.zeros((B4, gz.shape[1]), gz.dtype).at[:n].set(gz)
-    if _use_pallas():
-        da = _pallas_bwd(bytes_mb, gz_pad, n)
-    else:
-        dec = unpack_strided(bytes_mb, B4)
-        da = jax.lax.dot_general(
-            dec, gz_pad, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+def _dot3(dec, pieces, trans_a=False):
+    """dec @ (sum of pieces) with f32 accumulation; exact products."""
+    from jax.experimental import pallas as pl
+
+    acc = None
+    for p in pieces:
+        d = pl.dot(dec, p, trans_a=trans_a)
+        acc = d if acc is None else acc + d
+    return acc
+
+
+def _fwd_kernel(bytes_ref, a_ref, off_ref, out_ref, *, m, k, n, act):
+    """out[512 rows of group gi, :k] = act(dec(bytes)ᵀ @ a + off)."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    gi = pl.program_id(0)
+    kp = a_ref.shape[1]
+
+    def body(j, accs):
+        rows = j * _BM + jnp.arange(_BM)
+        b = plgpu.load(
+            bytes_ref.at[pl.ds(j * _BM, _BM), pl.ds(gi * GBYTES, GBYTES)],
+            mask=(rows < m)[:, None], other=0,
+        ).astype(jnp.int32)
+        pieces = _split3(a_ref[pl.ds(j * _BM, _BM), :])
+        return tuple(
+            acc + _dot3(_decode_part(b, q), pieces, trans_a=True)
+            for q, acc in enumerate(accs)
         )
-    return None, da
+
+    zero = jnp.zeros((GBYTES, kp), jnp.float32)
+    accs = jax.lax.fori_loop(0, _cdiv(m, _BM), body, (zero,) * 4)
+    off = off_ref[...][None, :]
+    cols = jnp.arange(kp) < k
+    for q in range(4):
+        r0 = gi * GROUP + q * GBYTES
+        rows = r0 + jnp.arange(GBYTES)
+        plgpu.store(
+            out_ref.at[pl.ds(r0, GBYTES), pl.ds(0, kp)],
+            _act_apply(act, accs[q] + off),
+            mask=(rows < n)[:, None] & cols[None, :],
+        )
 
 
-packed_matmul.defvjp(_fwd, _bwd)
+def _bwd_kernel(bytes_ref, g_ref, res_ref, da_ref, doff_ref, *, m, k, n, act,
+                ngroups, n_mtiles):
+    """Partials over chunk ci of CHUNK groups: da = dec @ dz, d_off = Σ dz,
+    with dz = g ⊙ act'(res) formed in registers."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    ci, mb = pl.program_id(0), pl.program_id(1)
+    kp = da_ref.shape[2]
+    m0 = mb * n_mtiles * _BM
+    cols = jnp.arange(kp) < k
+    g_last = jnp.minimum((ci + 1) * _CHUNK, ngroups)
+
+    def body(gi, carry):
+        accs, dsum = carry
+        dzs = []
+        for q in range(4):
+            r0 = gi * GROUP + q * GBYTES
+            mask = ((r0 + jnp.arange(GBYTES)) < n)[:, None] & cols[None, :]
+            idx = (pl.ds(r0, GBYTES), pl.ds(0, kp))
+            dz = plgpu.load(g_ref.at[idx], mask=mask, other=0.0)
+            if act != "identity":
+                res = plgpu.load(res_ref.at[idx], mask=mask, other=0.0)
+                dz = dz * _act_prime_from_out(act, res)
+            dsum = dsum + jnp.sum(dz, axis=0)
+            dzs.append(_split3(dz))
+        new = []
+        for t in range(n_mtiles):
+            r0 = m0 + t * _BM
+            rows = r0 + jnp.arange(_BM)
+            b = plgpu.load(
+                bytes_ref.at[pl.ds(r0, _BM), pl.ds(gi * GBYTES, GBYTES)],
+                mask=(rows < m)[:, None], other=0,
+            ).astype(jnp.int32)
+            acc = accs[t]
+            for q in range(4):
+                acc = acc + _dot3(_decode_part(b, q), dzs[q])
+            new.append(acc)
+        return tuple(new), dsum
+
+    zero = jnp.zeros((_BM, kp), jnp.float32)
+    accs, dsum = jax.lax.fori_loop(
+        ci * _CHUNK, g_last, body,
+        ((zero,) * n_mtiles, jnp.zeros((kp,), jnp.float32)),
+    )
+    for t in range(n_mtiles):
+        da_ref[ci, pl.ds(m0 + t * _BM, _BM), :] = accs[t]
+
+    @pl.when(mb == 0)
+    def _():
+        doff_ref[ci, :] = dsum
+
+
+def _linear_fwd_kernel(bytes_mb, a, off, n, act, interpret=False):
+    """out[n, k] = act(decode(bytes)[:, :n]ᵀ @ a + off) — Triton kernel."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    m, B = bytes_mb.shape
+    k = a.shape[1]
+    assert B % GBYTES == 0 and n <= B * 4
+    kp, mt = _kpad(k), _cdiv(m, _BM) * _BM
+    a_p = jnp.zeros((mt, kp), jnp.float32).at[:m, :k].set(a)
+    off_p = jnp.zeros((kp,), jnp.float32).at[:k].set(off)
+    return pl.pallas_call(
+        functools.partial(_fwd_kernel, m=m, k=k, n=n, act=act),
+        out_shape=jax.ShapeDtypeStruct((n, k), jnp.float32),
+        grid=(_cdiv(n, GROUP),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
+        interpret=interpret,
+        name="packed_linear_fwd",
+    )(bytes_mb, a_p, off_p)
+
+
+def _linear_bwd_kernel(bytes_mb, g, res, n, act, interpret=False):
+    """(da[m, k], d_off[k]) for cotangent g [n, k] at output res — Triton
+    kernel writing per-chunk partials, summed here."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    m, B = bytes_mb.shape
+    k = g.shape[1]
+    ngroups = _cdiv(n, GROUP)
+    nchunks = _cdiv(ngroups, _CHUNK)
+    kp, mt = _kpad(k), _cdiv(m, _BM) * _BM
+    mb_rows = min(mt, _MB)
+    n_mblocks = _cdiv(mt, mb_rows)
+    da_p, doff_p = pl.pallas_call(
+        functools.partial(
+            _bwd_kernel, m=m, k=k, n=n, act=act, ngroups=ngroups,
+            n_mtiles=mb_rows // _BM,
+        ),
+        out_shape=(
+            jax.ShapeDtypeStruct((nchunks, n_mblocks * mb_rows, kp),
+                                 jnp.float32),
+            jax.ShapeDtypeStruct((nchunks, kp), jnp.float32),
+        ),
+        grid=(nchunks, n_mblocks),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
+        interpret=interpret,
+        name="packed_linear_bwd",
+    )(bytes_mb, g, res)
+    return jnp.sum(da_p, axis=0)[:m, :k], jnp.sum(doff_p, axis=0)[:k]
+
+
+# --------------------------------------------------------------- dispatch
+
+
+def _on_cuda(kernel_fn, ref_fn, *args):
+    """The Triton kernel where the computation lowers for an NVIDIA GPU, the
+    plain reference on every other platform (decided at lowering)."""
+    return jax.lax.platform_dependent(*args, cuda=kernel_fn, default=ref_fn)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
 def packed_linear(bytes_mb, a, off, n, act):
     """out[n, k] = act(decode_strided(bytes_mb)[:, :n]ᵀ @ a + off[None, :]).
 
-    The fully fused layer-0 op: 2-bit decode, matmul, per-feature offset
-    (bias plus the rank-1 standardization correction folded in by the
-    caller, models/density.py), and activation in one kernel — the
-    pre-activation never touches HBM. ``act`` must be in FUSED_ACTIVATIONS
-    (its derivative is reconstructed from the output in the backward pass).
-    Differentiable in ``a`` and ``off``.
+    The fused layer-0 op: 2-bit decode, matmul, per-feature offset (bias
+    plus the rank-1 standardization correction folded in by the caller,
+    models/density.py), and activation in one kernel — the pre-activation
+    never touches device memory. ``act`` must be in FUSED_ACTIVATIONS (its
+    derivative is reconstructed from the output in the backward pass).
+    ``bytes_mb`` must be in the group-strided layout (pack_strided);
+    individuals beyond n decode to 0 (missing code). Differentiable in ``a``
+    and ``off``.
     """
     assert act in FUSED_ACTIVATIONS, act
-    if _use_pallas():
-        return _pallas_fwd_fused(bytes_mb, a, off, n, act)
-    z = _packed_matmul_ref(bytes_mb, a, n) + off[None, :]
-    return _act_apply(act, z)
+    return _on_cuda(
+        functools.partial(_linear_fwd_kernel, n=n, act=act),
+        functools.partial(_linear_ref, n=n, act=act),
+        bytes_mb, a, off,
+    )
 
 
 def _pl_fwd(bytes_mb, a, off, n, act):
@@ -472,34 +392,21 @@ def _pl_fwd(bytes_mb, a, off, n, act):
 
 def _pl_bwd(n, act, res, g):
     bytes_mb, out = res
-    B4 = bytes_mb.shape[1] * 4
-    k = g.shape[1]
-    if _use_pallas():
-        # h'(out) is applied inside the kernel: dz never round-trips HBM.
-        # Padded rows have g == 0, so their dz is 0 whatever res holds.
-        if n == B4:
-            g_pad, res_pad = g, out
-        else:
-            g_pad = jnp.zeros((B4, k), g.dtype).at[:n].set(g)
-            res_pad = jnp.zeros((B4, k), out.dtype).at[:n].set(out)
-        m = bytes_mb.shape[0]
-        if _tile_m(m) == m:
-            da, d_off = _pallas_bwd_fused(bytes_mb, g_pad, res_pad, n, act)
-            d_off = d_off[0]
-        else:  # wide branch: d_off as a (slower) XLA pass
-            dz_pad = g_pad * _act_prime_from_out(act, res_pad)
-            da = _pallas_bwd(bytes_mb, dz_pad, n)
-            d_off = jnp.sum(dz_pad, axis=0)
-    else:
-        dz = g * _act_prime_from_out(act, out)
-        d_off = jnp.sum(dz, axis=0)
-        dz_pad = jnp.zeros((B4, k), dz.dtype).at[:n].set(dz)
-        dec = unpack_strided(bytes_mb, B4)
-        da = jax.lax.dot_general(
-            dec, dz_pad, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
+    da, d_off = _on_cuda(
+        functools.partial(_linear_bwd_kernel, n=n, act=act),
+        functools.partial(_linear_bwd_ref, n=n, act=act),
+        bytes_mb, g, out,
+    )
     return None, da, d_off
 
 
 packed_linear.defvjp(_pl_fwd, _pl_bwd)
+
+
+def packed_matmul(bytes_mb, a, n):
+    """Z[n, k] = decode_strided(bytes_mb)[m, :n] (as [n, m]) @ a[m, k].
+
+    Differentiable in ``a`` only (the identity case of packed_linear).
+    """
+    return packed_linear(bytes_mb, a, jnp.zeros((a.shape[1],), a.dtype), n,
+                         "identity")

@@ -4,8 +4,7 @@ Rust/cargo is not available in this image, so the actual reference binary
 (/root/reference) cannot be executed. This module is the runnable stand-in:
 a straight, host-driven, branch-at-a-time implementation of the reference's
 EXACT update order and f32 arithmetic, used to establish statistical parity
-of the TPU framework's samplers against the reference algorithm
-(VERDICT.md round-1 item #1).
+of this framework's samplers against the reference algorithm.
 
 Mirrored, line for line in structure (all refs relative /root/reference/):
 

@@ -1,7 +1,7 @@
 """Device-mesh sharding of the Gibbs sweep.
 
 The reference is strictly single-device, single-chain (SURVEY.md §2.7). The
-TPU rebuild exposes the two parallel axes that exist implicitly in the model:
+rebuild exposes the two parallel axes that exist implicitly in the model:
 
   * ``chain``  — vectorized MCMC chains: pure data parallelism, no
     communication (each chain owns its full state).
@@ -186,7 +186,7 @@ def make_sharded_sweep(
     elif feat_major:
         from ..models.density import FeatX
 
-        # [G, m_pad, n]: branch shard leads, individuals shard the lanes
+        # [G, m_pad, n]: branch shard leads, individuals shard the minor axis
         x_spec = FeatX(P(b, None, dax))
     else:
         x_spec = P(b, dax, None)

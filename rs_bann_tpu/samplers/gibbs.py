@@ -1,6 +1,6 @@
 """Conjugate Gibbs updates for precision hyperparameters.
 
-TPU-native equivalents of /root/reference/src/net/gibbs_steps.rs:9-129: all
+Compiled equivalents of the reference's src/net/gibbs_steps.rs:9-129: all
 draws are ``jax.random.gamma`` with batched shape/scale arrays, so per-row ARD
 updates across a whole layer (and across branches/chains under vmap) are a
 single vectorized draw instead of the reference's host-loop of rand_distr

@@ -1,6 +1,6 @@
 """Hamiltonian Monte Carlo for one branch, as compiled ``lax.scan`` loops.
 
-TPU-native rebuild of the reference's ``hmc_step`` / ``hmc_step_joint`` /
+Compiled rebuild of the reference's ``hmc_step`` / ``hmc_step_joint`` /
 ``gradient_descent`` (/root/reference/src/net/branch/branch_sampler.rs:
 1192-1299, 1070-1178, 964-1016):
 
@@ -39,7 +39,6 @@ import jax
 import jax.numpy as jnp
 
 from ..models import density as D
-from ..ops import branch_mlp
 from .mcmc_cfg import MCMCCfg
 
 ACCEPTED, REJECTED, REJECTED_EARLY = 0, 1, 2
@@ -65,8 +64,8 @@ class HMCProposal(NamedTuple):
     The leapfrog map is reversible and volume-preserving for ANY smooth
     potential — the target density enters only the accept ratio. So the
     trajectory may integrate a STALE potential (e.g. a frozen-residual
-    branch conditional, letting all branches integrate in parallel on the
-    MXU) while the accept runs later against the LIVE conditional:
+    branch conditional, letting all branches integrate in parallel) while
+    the accept runs later against the LIVE conditional:
 
         log α_g = [prior(θ') − λ_e·rss_live(θ')/2 − K(p')]
                 − [prior(θ)  − λ_e·rss_live(θ)/2  − K(p)]
@@ -82,13 +81,11 @@ class HMCProposal(NamedTuple):
     y_pred_prop: jax.Array  # [n] branch prediction at θ'
     # [n] branch prediction at θ (the SAME prediction operator as
     # y_pred_prop). The live accept computes rss_old from this, NOT from
-    # the bookkept snapshot prediction: on TPU the default-precision dots
-    # round operands to bf16, so the transition's operator f̂ and the
-    # sweep's D.predict operator differ by a state-dependent δ(θ) with
-    # λ·Σ e·δ up to several log-units at n >= 1e5 — mixing operators
-    # inside one accept ratio is a noisy-MH bias that measurably drifts
-    # the chain (r5: n=100k live-accept runs degraded to r2 0.13 vs 0.34
-    # stale; CPU f32 runs, where the operators coincide, were healthy).
+    # the bookkept snapshot prediction: under reduced-precision dots
+    # (--bf16, --x-bf16) the transition's operator f̂ and the sweep's
+    # D.predict operator differ by a state-dependent δ(θ) with λ·Σ e·δ up
+    # to several log-units at n >= 1e5 — mixing operators inside one
+    # accept ratio is a noisy-MH bias that measurably drifts the chain.
     # Using f̂ at BOTH endpoints makes the ratio exact for the f̂ model.
     y_pred0: jax.Array
     prior_prop: jax.Array  # marginal log-prior terms at θ'
@@ -243,10 +240,7 @@ def make_hmc_step(
     # Lean leapfrog body for deferred-accept (parallel/hybrid live-accept)
     # transitions: the default body's per-step masked-freeze machinery (a
     # where-select over every carry leaf), u-turn statistic and Hamiltonian
-    # series cost more HBM traffic than the value-and-grad itself — measured
-    # 41.8 -> ~14 ms/sweep on the flagship shape (scripts/exp_chainfold2.py:
-    # the stripped loop hits the MXU issue bound; X stays VMEM-resident
-    # across the scan, so the r3 "X-stream-bound" model was an overcount).
+    # series cost more memory traffic than the value-and-grad itself.
     # Divergence handling moves to the END of the trajectory: dead iff the
     # final |ΔH| > max_err or non-finite. Forced rejection on |ΔH| is
     # symmetric under trajectory reversal (ΔH' = -ΔH), so detailed balance
@@ -255,17 +249,12 @@ def make_hmc_step(
     # (slightly HIGHER acceptance, still exact). u-turn tracking is only
     # needed by the uturn-adaptive trajectory-length mode, which keeps the
     # default body.
-    import os as _os
-
     lean_ok = (
         defer_accept
         and not record
         and not cfg.num_grad
         and not cfg.num_grad_traj
         and cfg.hmc_traj_length_mode == "fixed"
-        and _os.environ.get("RS_BANN_LEAN", "").lower() not in (
-            "0", "off", "false",
-        )
     )
 
     def potential(weights, biases, w_precisions, error_precision, x, y):
@@ -280,37 +269,6 @@ def make_hmc_step(
         return ld, (y_pred, prior)
 
     vg_exact = jax.value_and_grad(potential, argnums=(0, 1), has_aux=True)
-
-    # Fused Pallas path (ops/branch_mlp.py): the data term's forward AND all
-    # weight cotangents in ONE X stream per call — the autodiff path reads X
-    # twice per leapfrog step (forward + dW0 cotangent) and that stream is
-    # the measured wall-clock bound of the dense sweep (scripts/diag_scale).
-    # The tiny elementwise prior term stays on autodiff.
-    prior_vg = jax.value_and_grad(
-        lambda weights, biases, w_precisions: D.log_density_wrt_weights(
-            model_type, weights, w_precisions
-        ) + D.log_density_wrt_biases(model_type, biases),
-        argnums=(0, 1),
-    )
-
-    def vg_fused(weights, biases, w_precisions, error_precision, x, y):
-        if isinstance(x, D.PackedX):
-            y_pred, rss, dws, dbs = branch_mlp.data_vg_packed(
-                act_name, x, weights, biases, y
-            )
-        else:
-            y_pred, rss, dws, dbs = branch_mlp.data_vg(
-                act_name, x.xT, weights, biases, y
-            )
-        prior, (pgw, pgb) = prior_vg(weights, biases, w_precisions)
-        ld = prior - error_precision * rss / 2.0
-        gw = tuple(p - error_precision * d for p, d in zip(pgw, dws))
-        gb = tuple(p - error_precision * d for p, d in zip(pgb, dbs))
-        return (ld, (y_pred, prior)), (gw, gb)
-
-    fused_ok = (
-        not cfg.num_grad and act_name in branch_mlp.SUPPORTED_ACTIVATIONS
-    )
 
     def make_num_vg(masks_w, masks_b):
         """Forward finite differences, masked to true coordinates — the
@@ -361,24 +319,7 @@ def make_hmc_step(
         state after ``traj_len`` steps. Drawn independently of the state by
         the sweep (randomized-length HMC / u-turn-adaptive mode), so detailed
         balance holds per drawn length."""
-        if cfg.num_grad:
-            vg = make_num_vg(masks_w, masks_b)
-        elif (
-            fused_ok
-            and (
-                isinstance(x, D.PackedX)
-                or (isinstance(x, D.FeatX) and branch_mlp.FORCE is not None)
-            )
-            and branch_mlp.available()
-        ):
-            # PackedX always: measured 10.4x on the genome-scale hybrid
-            # sweep (238 vs 2476 ms/sweep — the sample-major [n, k<=16]
-            # pad/select fusions it removes dominated). Dense FeatX only
-            # under an explicit FORCE: there XLA's conv-emitter pipeline
-            # wins (44.2 vs 50.1 ms/sweep measured on the flagship shape).
-            vg = vg_fused
-        else:
-            vg = vg_exact
+        vg = make_num_vg(masks_w, masks_b) if cfg.num_grad else vg_exact
         num_vg = make_num_vg(masks_w, masks_b) if cfg.num_grad_traj else None
         k_eps, k_mom, k_acc = jax.random.split(key, 3)
         eps_w, eps_b = step_sizes(
@@ -920,306 +861,3 @@ def make_gradient_descent_joint(model_type: str, act_name: str, cfg: MCMCCfg):
         return res, sel(wp_f, w_prec), sel(bp_f, b_prec), jnp.where(ok, ep_f, err_prec)
 
     return gd
-
-
-def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg,
-                          transition, lean_ok: bool):
-    """Branch-batched deferred-accept transition with a chain-folding vmap
-    rule.
-
-    The returned callable runs ``jax.vmap(one)`` over the branch axis — the
-    parallel sweep's existing behavior. When a CALLER additionally vmaps the
-    whole sweep over chains, plain vmap composition re-lays-out the batched
-    leapfrog dots at every scan step (measured 3-5x slower,
-    scripts/exp_chainfold.py) and per-chain ``lax.map`` re-streams X from
-    HBM per chain per leapfrog direction — the r3-diagnosed wall-clock
-    bound of the dense flagship. The ``custom_vmap`` rule here intercepts
-    the chain axis and dispatches the whole-trajectory chain-folded Pallas
-    kernel (ops/leapfrog.py): X stays VMEM-resident for all L steps of all
-    C chains of a branch, and the rule reproduces the per-(chain, branch)
-    RNG derivations draw-for-draw, so the folded path samples exactly the
-    base path's transition.
-
-    Returned signature (leading-[G] arrays; per-sweep scalars unbatched):
-      fn(keys, weights, biases, w_prec, b_prec, err_prec, x, targets,
-         masks_w, masks_b, n_params, step_factors, mass_w, mass_b,
-         row_freeze)
-        -> HMCProposal batch ([G] leaves)
-    ``mass_w``/``mass_b`` are None when mass adaptation is off.
-    ``row_freeze`` ([G, in_pad] or None): per-marker spike-and-slab row
-    pins — excluded layer-0 rows get zero step size AND zero momentum,
-    exactly the per-branch hmc's row_freeze semantics, so the folded
-    production ssm recipe stays draw-compatible.
-    """
-    from jax.custom_batching import custom_vmap
-
-    from ..ops import branch_mlp, leapfrog
-
-    L_steps = cfg.hmc_integration_length
-    max_err = cfg.hmc_max_hamiltonian_error
-    l1 = D.is_lasso(model_type)
-    std_normal = model_type == "std_normal"
-    adaptive = cfg.hmc_step_size_mode == "dual_averaging"
-
-    def base(keys, weights, biases, w_prec, b_prec, err_prec, x, targets,
-             masks_w, masks_b, n_params, step_factors, mass_w, mass_b,
-             row_freeze):
-        def one(k, w_g, b_g, wp_g, bp_g, x_g, t_g, mw_g, mb_g, npar, fac,
-                msw, msb, rf):
-            kw = {}
-            if msw is not None:
-                kw["mass_w"], kw["mass_b"] = msw, msb
-            if rf is not None:
-                kw["row_freeze"] = rf
-            return transition(
-                k, w_g, b_g, wp_g, bp_g, err_prec, x_g, t_g, mw_g, mb_g,
-                npar, fac if adaptive else None, **kw,
-            )
-
-        return jax.vmap(one)(
-            keys, weights, biases, w_prec, b_prec, x, targets, masks_w,
-            masks_b, n_params, step_factors, mass_w, mass_b, row_freeze,
-        )
-
-    base_cv = custom_vmap(base)
-
-    @base_cv.def_vmap
-    def _chain_rule(axis_size, in_batched, keys, weights, biases, w_prec,
-                    b_prec, err_prec, x, targets, masks_w, masks_b, n_params,
-                    step_factors, mass_w, mass_b, row_freeze):
-        (kb, wb, bb, wpb, bpb, eb, xb, tb, mwb, mbb, npb, sfb, mswb,
-         msbb, rfb) = in_batched
-        prop_batched = HMCProposal(
-            weights=tuple(True for _ in weights),
-            biases=tuple(True for _ in biases),
-            y_pred_prop=True, y_pred0=True, prior_prop=True, prior0=True,
-            kin_prop=True, kin0=True, dead=True, uturn_step=True,
-        )
-        flat = lambda t: jax.tree.leaves(t)
-        is_packed = isinstance(x, D.PackedX)
-        # packed folds at any size (resident or grid-streamed kernel,
-        # integrate_chains_packed picks); dense needs the resident block
-        x_ok = (
-            isinstance(x, D.FeatX)
-            and leapfrog.x_fits_vmem(
-                x.xT.shape[-2], x.xT.shape[-1], targets.shape[0]
-            )
-        ) or is_packed
-        foldable = (
-            lean_ok
-            and leapfrog.fold_enabled()
-            and x_ok
-            and not any(flat(xb))                      # x shared over chains
-            and not any(flat(mwb)) and not any(flat(mbb))
-            and not any(flat(npb))
-            and all(flat(kb)) and all(flat(wb)) and all(flat(bb))
-            and all(flat(tb))
-            and act_name in branch_mlp.SUPPORTED_ACTIVATIONS
-            and cfg.hmc_step_size_mode in (
-                "izmailov", "std_scaled", "dual_averaging"
-            )
-            and branch_mlp.available()
-        )
-        if not foldable:
-            axes = jax.tree.map(lambda b_: 0 if b_ else None, in_batched)
-            out = jax.vmap(base, in_axes=tuple(axes))(
-                keys, weights, biases, w_prec, b_prec, err_prec, x, targets,
-                masks_w, masks_b, n_params, step_factors, mass_w, mass_b,
-                row_freeze,
-            )
-            return out, prop_batched
-
-        C, G = targets.shape[0], targets.shape[1]
-        interpret = branch_mlp.FORCE == "interpret"
-
-        def t_cg(tree):  # [C, G, ...] -> [G, C, ...]
-            return jax.tree.map(lambda a: jnp.swapaxes(a, 0, 1), tree)
-
-        def t_opt(tree, batched):
-            """Transpose chain-batched leaves; broadcast shared ones."""
-            def leaf(a, b_):
-                if b_:
-                    return jnp.swapaxes(a, 0, 1)
-                return jnp.broadcast_to(a[:, None], (G, C) + a.shape[1:])
-            return jax.tree.map(leaf, tree, batched)
-
-        keys_gc = t_cg(keys)
-        w_gc = t_cg(weights)
-        b_gc = t_cg(biases)
-        wp_gc = t_opt(w_prec, wpb)
-        bp_gc = t_opt(b_prec, bpb)
-        tgt_gc = t_cg(targets)
-        err_c = jnp.broadcast_to(jnp.asarray(err_prec), (C,))
-        err_gc = jnp.broadcast_to(err_c[None, :], (G, C))
-        fac_gc = t_opt(step_factors, sfb) if adaptive else None
-        has_mass = mass_w is not None
-        msw_gc = t_opt(mass_w, mswb) if has_mass else None
-        msb_gc = t_opt(mass_b, msbb) if has_mass else None
-        has_rf = row_freeze is not None
-        if has_rf:
-            rf_gc = (
-                jnp.swapaxes(row_freeze, 0, 1) if rfb
-                else jnp.broadcast_to(
-                    row_freeze[:, None], (G, C) + row_freeze.shape[1:]
-                )
-            )
-        else:
-            rf_gc = None
-
-        # per-(g, c) key splits, step sizes, masked momenta — the per-branch
-        # hmc's exact derivations, so folded == base draw-for-draw
-        def prep_gc(k, w1, b1, wp1, bp1, npar, fac1, msw1, msb1, mw, mb,
-                    rf1):
-            k_eps, k_mom, _ = jax.random.split(k, 3)
-            eps_w, eps_b = step_sizes(
-                k_eps, model_type, cfg, w1, b1, wp1, bp1, npar,
-                fac1 if adaptive else None, msw1, msb1,
-            )
-            if has_rf:
-                # per-marker spike-and-slab row pins, mirroring the
-                # per-branch hmc's row_freeze: where-not-multiply (an
-                # excluded row's prior-drawn ARD precision can make its
-                # izmailov eps infinite; inf*0 is NaN)
-                fr = rf1[:, None]
-                eps_w = (jnp.where(fr > 0, eps_w[0], 0.0),) + tuple(
-                    eps_w[1:]
-                )
-                mw = (mw[0] * fr,) + tuple(mw[1:])
-            mkeys = jax.random.split(k_mom, len(w1) + len(b1))
-            p_w = tuple(
-                jax.random.normal(kk, w.shape) * m
-                for kk, w, m in zip(mkeys, w1, mw)
-            )
-            p_b = tuple(
-                jax.random.normal(kk, bb2.shape) * m
-                for kk, bb2, m in zip(mkeys[len(w1):], b1, mb)
-            )
-            eps_w = tuple(
-                jnp.broadcast_to(e, w.shape) for e, w in zip(eps_w, w1)
-            )
-            eps_b = tuple(
-                jnp.broadcast_to(e, bb2.shape) for e, bb2 in zip(eps_b, b1)
-            )
-            return eps_w, eps_b, p_w, p_b
-
-        fax = 0 if adaptive else None
-        max_ = 0 if has_mass else None
-        rfx = 0 if has_rf else None
-        inner = jax.vmap(
-            prep_gc,
-            in_axes=(0, 0, 0, 0, 0, None, fax, max_, max_, None, None, rfx),
-        )
-        outer = jax.vmap(
-            inner,
-            in_axes=(0, 0, 0, 0, 0, 0, fax, max_, max_, 0, 0, rfx),
-        )
-        eps_w, eps_b, p_w, p_b = outer(
-            keys_gc, w_gc, b_gc, wp_gc, bp_gc, n_params, fac_gc,
-            msw_gc, msb_gc, masks_w, masks_b, rf_gc,
-        )
-
-        # prior precision factors in weight layout: grad = -lam*w
-        # (gaussian) / -lam*sign(w) (laplace); marginal-mode biases are
-        # unregularized except std_normal's unit precisions
-        if std_normal:
-            lam_w = tuple(jnp.ones_like(w) for w in w_gc)
-            lam_b = tuple(jnp.ones_like(b) for b in b_gc)
-        else:
-            lam_w = tuple(
-                jnp.broadcast_to(lp, w.shape) for lp, w in zip(wp_gc, w_gc)
-            )
-            lam_b = tuple(jnp.zeros_like(b) for b in b_gc)
-
-        def prior_of(ws, bs, wps):
-            return D.log_density_wrt_weights(
-                model_type, ws, wps
-            ) + D.log_density_wrt_biases(model_type, bs)
-
-        prior_gc = jax.vmap(jax.vmap(prior_of))
-
-        def kin(pws, pbs):
-            return 0.5 * sum(
-                jnp.sum(p * p, axis=tuple(range(2, p.ndim)))
-                for p in (tuple(pws) + tuple(pbs))
-            )
-
-        if is_packed:
-            # packed value pass for H0/Hf and the live-accept predictions:
-            # FORWARD-ONLY per-chain map (r5: the fwd+bwd kernel wasted a
-            # 2/3-of-cost backward here — 2 value passes per block per
-            # sweep are a visible share of the UKB wall clock). D.predict
-            # is also the operator the sweep's own snapshot predictions
-            # use, so the accept endpoints and the bookkeeping basis share
-            # one operator.
-            def vg_all_packed(w_gc_, b_gc_):
-                t_cg = lambda tree: jax.tree.map(
-                    lambda a: jnp.swapaxes(a, 0, 1), tree
-                )
-
-                def per_chain(args):
-                    w_c, b_c, tc = args
-
-                    def per_branch(x_g, w_g, b_g, t_g):
-                        yp = D.predict(act_name, w_g, b_g, x_g)
-                        r = yp - t_g
-                        return yp, jnp.sum(r * r)
-
-                    return jax.vmap(per_branch)(x, w_c, b_c, tc)
-
-                yp_cg, rss_cg = jax.lax.map(
-                    per_chain,
-                    (t_cg(w_gc_), t_cg(b_gc_), jnp.swapaxes(tgt_gc, 0, 1)),
-                )
-                return jnp.swapaxes(yp_cg, 0, 1), jnp.swapaxes(rss_cg, 0, 1)
-
-            vg_all = vg_all_packed
-        else:
-            def vg_all(w_gc_, b_gc_):
-                # f32 values: these feed H0/Hf and the live accept
-                yp, rss, _, _ = branch_mlp.data_vg_chains(
-                    act_name, x.xT, w_gc_, b_gc_, tgt_gc, f32=True
-                )
-                return yp, rss
-
-        yp0, rss0 = vg_all(w_gc, b_gc)
-        pri0 = prior_gc(w_gc, b_gc, wp_gc)          # [G, C]
-        kin0 = kin(p_w, p_b)
-        neg_h0 = (pri0 - err_gc * rss0 / 2.0) - kin0
-
-        if is_packed:
-            w_f, b_f, pw_f, pb_f = leapfrog.integrate_chains_packed(
-                act_name, x.bytes, x.w_scale, x.shift, tgt_gc, err_gc,
-                w_gc, b_gc, p_w, p_b, eps_w, eps_b, lam_w, lam_b, L_steps,
-                x.n, l1=l1, interpret=interpret,
-            )
-        else:
-            w_f, b_f, pw_f, pb_f = leapfrog.integrate_chains(
-                act_name, x.xT, tgt_gc, err_gc, w_gc, b_gc, p_w, p_b,
-                eps_w, eps_b, lam_w, lam_b, L_steps, l1=l1,
-                interpret=interpret,
-            )
-
-        yp_f, rss_f = vg_all(w_f, b_f)
-        pri_f = prior_gc(w_f, b_f, wp_gc)
-        kin_f = kin(pw_f, pb_f)
-        neg_h_f = (pri_f - err_gc * rss_f / 2.0) - kin_f
-        dead = ~(jnp.abs(neg_h_f - neg_h0) <= max_err)
-
-        back = lambda tree: jax.tree.map(
-            lambda a: jnp.swapaxes(a, 0, 1), tree
-        )
-        prop = HMCProposal(
-            weights=back(w_f),
-            biases=back(b_f),
-            y_pred_prop=back(yp_f),
-            y_pred0=back(yp0),
-            prior_prop=back(pri_f),
-            prior0=back(pri0),
-            kin_prop=back(kin_f),
-            kin0=back(kin0),
-            dead=back(dead),
-            uturn_step=jnp.zeros((C, G), jnp.int32),
-        )
-        return prop, prop_batched
-
-    return base_cv

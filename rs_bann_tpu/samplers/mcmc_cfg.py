@@ -31,9 +31,9 @@ class MCMCCfg:
     fixed_param_precisions: bool = False
     sampled_output_bias: bool = False
     effect_sizes: bool = False
-    num_chains: int = 1  # TPU extension: vectorized chains (reference: 1)
-    seed: int = 0  # TPU extension: fully reproducible runs (reference: none)
-    target_accept: float = 0.8  # dual-averaging adaptation target (TPU ext.)
+    num_chains: int = 1  # extension: vectorized chains (reference: 1)
+    seed: int = 0  # extension: fully reproducible runs (reference: none)
+    target_accept: float = 0.8  # dual-averaging adaptation target (extension)
     sweeps_per_call: int = 0  # 0 = auto: batch K sweeps per compiled call
     update_mode: str = "sequential"  # "sequential" (reference-exact random-scan
     # Gibbs), "parallel" (block systematic-scan: all branches HMC against a
@@ -44,12 +44,11 @@ class MCMCCfg:
     block_size: int = 0  # hybrid mode: branches per parallel block
     hybrid_shared_perm: bool = True  # hybrid mode (r5): draw the per-sweep
     # block permutation from (seed, sweep counter) shared across chains
-    # instead of each chain's carry key. Required for the chain-folded
-    # whole-trajectory kernel to engage on the hybrid schedule (the block's
-    # X slice must be unbatched over chains; models/net.chain_fold_eligible)
-    # and value-identical between vmapped and lax.map chain arrangements.
+    # instead of each chain's carry key, so the block's X slice stays
+    # unbatched under a chain vmap (one X read per dot for all chains);
+    # value-identical between vmapped and lax.map chain arrangements.
     # False restores the pre-r5 per-chain permutation draws.
-    ss_rows: bool = False  # TPU extension: per-marker selection for
+    ss_rows: bool = False  # extension: per-marker selection for
     # NONLINEAR branches (any depth/activation; ridge_ard only). Two-
     # component mixture on layer-0 row priors: slab = the usual
     # Gamma-ARD row prior; spike = N(0, 1/ssr_spike) (narrow Gaussian,
@@ -100,9 +99,9 @@ class MCMCCfg:
     # bias precisions are exempt (unregularized coordinates whose lambda
     # only scales step sizes; flooring them measurably changed reference
     # mixing, net._gibbs_local_precisions). 0 disables.
-    live_accept: bool = True  # TPU extension (parallel/hybrid marginal HMC):
+    live_accept: bool = True  # extension (parallel/hybrid marginal HMC):
     # integrate all branch trajectories in parallel against the FROZEN
-    # residual (the expensive leapfrogs stay batched on the MXU), but run
+    # residual (the expensive leapfrogs stay batched), but run
     # the Metropolis accepts SEQUENTIALLY against the LIVE residual — the
     # leapfrog map is reversible/volume-preserving for any potential, so
     # the stale target only shapes the proposal while the accept targets
@@ -113,12 +112,12 @@ class MCMCCfg:
     # the old approximate behavior. Ignored for sequential/joint/GD and the
     # spike-and-slab paths (those mutate params between snapshot and HMC).
     gd_warmup: int = 0  # run N gradient-descent sweeps before sampling
-    mass_adaptation: bool = False  # TPU extension: estimate per-coordinate
+    mass_adaptation: bool = False  # extension: estimate per-coordinate
     # posterior variances during warmup (Welford over kept branch states,
     # shrunk toward the prior variance) and use them as a diagonal mass
     # matrix — per-coordinate step sizes ε_i = ε·σ̂_i replacing the
     # prior-scale izmailov rule. Marginal HMC only.
-    hmc_traj_length_mode: str = "fixed"  # TPU extension: dynamic trajectory
+    hmc_traj_length_mode: str = "fixed"  # extension: dynamic trajectory
     # lengths. "fixed" = always hmc_integration_length steps (reference
     # behavior). "jittered" = per branch update draw l ~ U{1..L}: randomized
     # path lengths break the resonance/periodicity of fixed-length HMC.
@@ -129,7 +128,7 @@ class MCMCCfg:
     # back on themselves, raising effective samples per sweep. The compiled
     # scan always runs L steps (static shapes); truncation freezes the carry,
     # so pick hmc_integration_length as an upper bound. Marginal HMC only.
-    spike_slab: bool = False  # TPU extension: spike-and-slab branch
+    spike_slab: bool = False  # extension: spike-and-slab branch
     # selection. The branch output layer is linear-Gaussian given the
     # summary activations A_g, so a per-branch inclusion indicator z_g has
     # an EXACT collapsed conjugate Gibbs move: w_out is integrated out for
@@ -153,7 +152,7 @@ class MCMCCfg:
     # excluded early can never re-enter (measured: total collapse on diffuse
     # genetic architectures). The collapsed w_out draw still runs during the
     # forced phase (a plain conjugate Gibbs move on the output layer).
-    ss_markers: bool = False  # TPU extension: PER-MARKER (within-branch)
+    ss_markers: bool = False  # extension: PER-MARKER (within-branch)
     # spike-and-slab. For identity-activation depth-0 branches (the
     # genome-scale production architecture, docs/GENOME_SCALE.md) the
     # branch output is linear in each layer-0 row W0[j]: only the component
@@ -178,7 +177,7 @@ class MCMCCfg:
     # (markers need no projection-alignment warmup — their evidence flows
     # through x_j directly — so the default is off, unlike branch-level
     # ss_warmup)
-    tempering: bool = False  # TPU extension: parallel tempering (replica
+    tempering: bool = False  # extension: parallel tempering (replica
     # exchange) across the chain axis. Chain slot c targets the tempered
     # posterior p(θ)·L(θ)^β_c with a geometric ladder β_c from 1 down to
     # 1/max_temperature; adjacent slots propose state swaps after every

@@ -44,7 +44,7 @@ def main():
 
     h2s = [0.8] if args.quick else [0.25, 0.5, 0.8, 0.95]
     # canonical chain lengths (sim_train_pred.sh) under the reference's
-    # izmailov scheme, plus the TPU-native adaptive configuration
+    # izmailov scheme, plus this framework's adaptive configuration
     configs = [("izmailov", 10), ("izmailov", 100), ("dual_averaging", 1000)]
     if args.quick:
         configs = configs[:2]

@@ -1,7 +1,7 @@
 """Feature-major dense layout (models/density.FeatX) equivalence tests.
 
 FeatX is a pure LAYOUT change — [G, m_pad, n] instead of [G, n, m_pad] —
-chosen for MXU lane efficiency (see the FeatX docstring). Every quantity the
+with the large n axis minor (see the FeatX docstring). Every quantity the
 sweep computes must agree with the sample-major path to float tolerance.
 """
 

@@ -1,10 +1,7 @@
-"""Chain-folded whole-trajectory leapfrog kernel (ops/leapfrog.py) and its
-sweep integration (samplers/hmc.make_transition_batch).
-
-Interpret mode on CPU: f32 math, so the kernel must agree with the
-reference autodiff leapfrog to float-roundoff, and a chain-vmapped sweep
-(which dispatches the folded kernel through the custom_vmap rule) must
-match the per-chain ``lax.map`` arrangement draw-for-draw.
+"""Chain arrangements of the compiled sweep: a chain-vmapped sweep (the
+arrangement train.py runs, with X unbatched over chains) must reproduce the
+per-chain ``lax.map`` arrangement draw-for-draw — same keys, same momenta
+and step sizes; only f32 association-order roundoff differs.
 """
 
 import jax
@@ -15,100 +12,8 @@ import pytest
 from rs_bann_tpu.models import density as D
 from rs_bann_tpu.models.arch import NetArch
 from rs_bann_tpu.models.init import InitCfg, init_net
-from rs_bann_tpu.models.net import Net, chain_fold_eligible
-from rs_bann_tpu.ops import branch_mlp as bm
-from rs_bann_tpu.ops.leapfrog import integrate_chains
+from rs_bann_tpu.models.net import Net
 from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
-
-
-@pytest.fixture(autouse=True)
-def _interpret():
-    bm.FORCE = "interpret"
-    yield
-    bm.FORCE = None
-
-
-@pytest.mark.parametrize(
-    "act,l1,n",
-    [
-        ("tanh", False, 384),
-        # n neither 128-aligned nor tile-aligned: pins the exact-width
-        # tiling (a fixed-width lane mask against a clipped slice was an
-        # r4 shape bug for every n % tile != 0)
-        ("identity", True, 333),
-    ],
-)
-def test_integrate_chains_matches_autodiff_leapfrog(act, l1, n):
-    rng = np.random.default_rng(0)
-    G, C, m, h, s, L_steps = 2, 3, 16, 8, 8, 5
-    widths = [(m, h), (h, s), (s, 1)]
-    mk = lambda sc: tuple(
-        jnp.asarray(rng.standard_normal((G, C, i, o)).astype(np.float32)) * sc
-        for i, o in widths
-    )
-    mkb = lambda sc: tuple(
-        jnp.asarray(rng.standard_normal((G, C, o)).astype(np.float32)) * sc
-        for i, o in widths[:-1]
-    )
-    weights, p_w = mk(0.3), mk(0.5)
-    eps_w = tuple(jnp.abs(e) * 0.01 for e in mk(1.0))
-    lam_w = tuple(jnp.abs(e) + 0.5 for e in mk(1.0))
-    biases, p_b = mkb(0.1), mkb(0.5)
-    eps_b = tuple(jnp.abs(e) * 0.01 for e in mkb(1.0))
-    lam_b = tuple(jnp.zeros_like(e) for e in mkb(1.0))
-    xT = jnp.asarray(rng.standard_normal((G, m, n)).astype(np.float32))
-    targets = jnp.asarray(rng.standard_normal((G, C, n)).astype(np.float32))
-    err = jnp.asarray(
-        np.abs(rng.standard_normal((G, C))).astype(np.float32) + 0.5
-    )
-
-    w_f, b_f, pw_f, pb_f = integrate_chains(
-        act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b,
-        lam_w, lam_b, L_steps, l1=l1, interpret=True,
-    )
-
-    def ld(w, b, x_g, t, e, lw):
-        a = x_g
-        for l in range(len(w) - 1):
-            z = jax.lax.dot_general(
-                w[l], a, (((0,), (0,)), ((), ()))
-            ) + b[l][:, None]
-            a = bm._act(act, z)
-        pred = jnp.sum(w[-1] * a, axis=0)
-        rss = jnp.sum((pred - t) ** 2)
-        if l1:
-            pri = -sum(
-                jnp.sum(li * wi * jnp.sign(wi)) for li, wi in zip(lw, w)
-            )
-        else:
-            pri = -0.5 * sum(jnp.sum(li * wi * wi) for li, wi in zip(lw, w))
-        return pri - e * rss / 2.0
-
-    grad = jax.jit(jax.grad(ld, argnums=(0, 1)), static_argnames=())
-    for g in range(G):
-        for c in [0, C - 1]:
-            w = tuple(wi[g, c] for wi in weights)
-            b = tuple(bi[g, c] for bi in biases)
-            pw = tuple(pi[g, c] for pi in p_w)
-            pb = tuple(pi[g, c] for pi in p_b)
-            ew = tuple(ei[g, c] for ei in eps_w)
-            ebs = tuple(ei[g, c] for ei in eps_b)
-            lw = tuple(li[g, c] for li in lam_w)
-            gw, gb = grad(w, b, xT[g], targets[g, c], err[g, c], lw)
-            for _ in range(L_steps):
-                pw = tuple(p + 0.5 * e * gg for p, e, gg in zip(pw, ew, gw))
-                pb = tuple(p + 0.5 * e * gg for p, e, gg in zip(pb, ebs, gb))
-                w = tuple(wi + e * p for wi, e, p in zip(w, ew, pw))
-                b = tuple(bi + e * p for bi, e, p in zip(b, ebs, pb))
-                gw, gb = grad(w, b, xT[g], targets[g, c], err[g, c], lw)
-                pw = tuple(p + 0.5 * e * gg for p, e, gg in zip(pw, ew, gw))
-                pb = tuple(p + 0.5 * e * gg for p, e, gg in zip(pb, ebs, gb))
-            for l in range(3):
-                np.testing.assert_allclose(w[l], w_f[l][g, c], atol=2e-5)
-                np.testing.assert_allclose(pw[l], pw_f[l][g, c], atol=2e-5)
-            for l in range(2):
-                np.testing.assert_allclose(b[l], b_f[l][g, c], atol=2e-5)
-                np.testing.assert_allclose(pb[l], pb_f[l][g, c], atol=2e-5)
 
 
 def _setup_net(model_type="ridge_base", act="tanh", G=4, m=8, h=4, n=256,
@@ -137,9 +42,9 @@ def _setup_net(model_type="ridge_base", act="tanh", G=4, m=8, h=4, n=256,
 )
 def test_chain_vmapped_sweep_matches_lax_map(model_type, mode, mass, act,
                                              depth):
-    """The chain-folded dispatch must reproduce the per-chain arrangement
-    draw-for-draw (same keys -> same momenta/step sizes; f32 interpret
-    kernels -> only association-order roundoff differs)."""
+    """The chain vmap must reproduce the per-chain arrangement
+    draw-for-draw (same keys -> same momenta/step sizes; only
+    association-order roundoff differs)."""
     C = 2
     net, X, y = _setup_net(model_type=model_type, act=act, depth=depth)
     cfg = MCMCCfg(
@@ -147,21 +52,20 @@ def test_chain_vmapped_sweep_matches_lax_map(model_type, mode, mass, act,
         hmc_integration_length=4, hmc_step_size_mode=mode,
         update_mode="parallel", num_chains=C, mass_adaptation=mass, seed=0,
     )
-    assert chain_fold_eligible(net.model_type, net.arch.activation, cfg, X)
     sweep = net.make_sweep(cfg)
     keys = jax.random.split(jax.random.key(0), C)
     mk_carry = jax.vmap(
         lambda k: net.init_carry(X, y, k, mass_adaptation=mass)
     )
 
-    folded = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
+    vmapped = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
     ref = jax.jit(
         lambda c, X_, y_: jax.lax.map(lambda ci: sweep(ci, X_, y_), c)
     )
 
     c_f, c_r = mk_carry(keys), mk_carry(keys)
     for _ in range(3):
-        c_f, st_f = folded(c_f, X, y)
+        c_f, st_f = vmapped(c_f, X, y)
         c_r, st_r = ref(c_r, X, y)
     np.testing.assert_allclose(
         np.asarray(c_f.residual), np.asarray(c_r.residual), rtol=2e-4,
@@ -178,17 +82,15 @@ def test_chain_vmapped_sweep_matches_lax_map(model_type, mode, mass, act,
         )
 
 
-def test_chain_fold_ineligible_configs_fall_back():
-    """Configs outside the folded path (hybrid with per-chain permutations,
-    sequential schedule) still run correctly under a chain vmap via the
-    generic rule."""
+def test_per_chain_block_perm_runs_under_chain_vmap():
+    """Hybrid with per-chain block permutations (X[ixs] batched over
+    chains) still runs correctly under the chain vmap."""
     net, X, y = _setup_net()
     cfg = MCMCCfg(
         chain_length=1, burn_in=10**9, hmc_integration_length=3,
         update_mode="hybrid", block_size=2, num_chains=2, seed=0,
         hybrid_shared_perm=False,
     )
-    assert not chain_fold_eligible(net.model_type, net.arch.activation, cfg, X)
     sweep = net.make_sweep(cfg)
     keys = jax.random.split(jax.random.key(0), 2)
     carry = jax.vmap(lambda k: net.init_carry(X, y, k))(keys)
@@ -196,13 +98,6 @@ def test_chain_fold_ineligible_configs_fall_back():
         carry, X, y
     )
     assert np.all(np.isfinite(np.asarray(stats.mse_train)))
-    cfg_seq = MCMCCfg(
-        chain_length=1, burn_in=10**9, hmc_integration_length=3,
-        update_mode="sequential", num_chains=2, seed=0,
-    )
-    assert not chain_fold_eligible(
-        net.model_type, net.arch.activation, cfg_seq, X
-    )
 
 
 def _setup_net_packed(model_type="ridge_ard", act="identity", G=4, m=8,
@@ -242,9 +137,9 @@ def _setup_net_packed(model_type="ridge_ard", act="identity", G=4, m=8,
 )
 def test_hybrid_chain_vmapped_sweep_matches_lax_map(packed, model_type, act,
                                                     depth, mode, mass):
-    """The hybrid schedule's chain-folded dispatch (r5: shared block
-    permutation + whole-trajectory kernel per block, dense AND packed) must
-    reproduce the per-chain lax.map arrangement draw-for-draw."""
+    """The hybrid schedule under a chain vmap (r5: shared block
+    permutation, dense AND packed) must reproduce the per-chain lax.map
+    arrangement draw-for-draw."""
     C = 2
     if packed:
         net, X, y = _setup_net_packed(model_type=model_type, act=act,
@@ -257,21 +152,20 @@ def test_hybrid_chain_vmapped_sweep_matches_lax_map(packed, model_type, act,
         update_mode="hybrid", block_size=2, num_chains=C,
         mass_adaptation=mass, seed=0,
     )
-    assert chain_fold_eligible(net.model_type, net.arch.activation, cfg, X)
     sweep = net.make_sweep(cfg)
     keys = jax.random.split(jax.random.key(0), C)
     mk_carry = jax.vmap(
         lambda k: net.init_carry(X, y, k, mass_adaptation=mass)
     )
 
-    folded = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
+    vmapped = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
     ref = jax.jit(
         lambda c, X_, y_: jax.lax.map(lambda ci: sweep(ci, X_, y_), c)
     )
 
     c_f, c_r = mk_carry(keys), mk_carry(keys)
     for _ in range(3):
-        c_f, st_f = folded(c_f, X, y)
+        c_f, st_f = vmapped(c_f, X, y)
         c_r, st_r = ref(c_r, X, y)
     np.testing.assert_allclose(
         np.asarray(c_f.residual), np.asarray(c_r.residual), rtol=2e-4,
@@ -289,11 +183,11 @@ def test_hybrid_chain_vmapped_sweep_matches_lax_map(packed, model_type, act,
 
 
 def test_ssm_hybrid_chain_vmapped_matches_lax_map():
-    """r5: the per-marker spike-and-slab production recipe now runs the
-    live-accept + chain-folded path (post-scan prediction rebase + in-fold
-    row freezing). The folded dispatch must reproduce the per-chain lax.map
-    arrangement draw-for-draw, including the spike invariant (excluded
-    rows exactly zero)."""
+    """r5: the per-marker spike-and-slab production recipe runs the
+    live-accept path (post-scan prediction rebase + row freezing). The
+    chain vmap must reproduce the per-chain lax.map arrangement
+    draw-for-draw, including the spike invariant (excluded rows exactly
+    zero)."""
     C = 2
     net, X, y = _setup_net_packed(model_type="ridge_ard", act="identity",
                                   depth=0, n=700)
@@ -302,21 +196,20 @@ def test_ssm_hybrid_chain_vmapped_matches_lax_map():
         update_mode="hybrid", block_size=2, num_chains=C, seed=0,
         ss_markers=True, ssm_pi=0.3, ssm_warmup=0,
     )
-    assert chain_fold_eligible(net.model_type, net.arch.activation, cfg, X)
     sweep = net.make_sweep(cfg)
     keys = jax.random.split(jax.random.key(0), C)
     mk_carry = jax.vmap(
         lambda k: net.init_carry(X, y, k, ss_markers=True, ssm_pi=0.3)
     )
 
-    folded = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
+    vmapped = jax.jit(jax.vmap(sweep, in_axes=(0, None, None)))
     ref = jax.jit(
         lambda c, X_, y_: jax.lax.map(lambda ci: sweep(ci, X_, y_), c)
     )
 
     c_f, c_r = mk_carry(keys), mk_carry(keys)
     for _ in range(3):
-        c_f, st_f = folded(c_f, X, y)
+        c_f, st_f = vmapped(c_f, X, y)
         c_r, st_r = ref(c_r, X, y)
     np.testing.assert_allclose(
         np.asarray(c_f.residual), np.asarray(c_r.residual), rtol=2e-4,

@@ -1,4 +1,4 @@
-"""Diagonal mass-matrix adaptation tests (TPU extension; no reference
+"""Diagonal mass-matrix adaptation tests (extension; no reference
 counterpart — the reference's izmailov rule is the count=0 special case)."""
 
 import pytest

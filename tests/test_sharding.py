@@ -100,12 +100,9 @@ def test_graft_entry_dryrun():
 
 @pytest.mark.slow
 def test_fused_dense_sharded_matches_single_device():
-    """VERDICT r3 #5a: the fused branch-MLP kernel (interpret mode) under
-    the (chain, branch, data) mesh — including the data/individuals axis —
-    must match the single-device fused run. Exercises the custom_vmap
-    dispatch composed with GSPMD partitioning."""
-    from rs_bann_tpu.ops import branch_mlp as bm
-
+    """The dense feature-major parallel sweep under the (chain, branch,
+    data) mesh — including the data/individuals axis — must match the
+    single-device chain-vmapped run."""
     G, n, m, h, C = 8, 64, 8, 4, 2
     arch = NetArch.uniform(G, m, h, 1, h)
     state, _ = init_net(arch, "ridge_base", InitCfg(seed=0))
@@ -120,21 +117,17 @@ def test_fused_dense_sharded_matches_single_device():
         update_mode="parallel", num_chains=C, seed=0,
     )
     keys = jax.random.split(jax.random.key(0), C)
-    bm.FORCE = "interpret"
-    try:
-        sweep = jax.jit(jax.vmap(net.make_sweep(cfg), in_axes=(0, None, None)))
-        carry0 = jax.vmap(lambda k: net.init_carry(X, y, k))(keys)
-        ref, ref_stats = sweep(carry0, X, y)
+    sweep = jax.jit(jax.vmap(net.make_sweep(cfg), in_axes=(0, None, None)))
+    carry0 = jax.vmap(lambda k: net.init_carry(X, y, k))(keys)
+    ref, ref_stats = sweep(carry0, X, y)
 
-        mesh = make_mesh(2, 2, 2)
-        ssweep, place_carry, place_data = make_sharded_sweep(
-            net, cfg, mesh, feat_major=True
-        )
-        carry1 = place_carry(jax.vmap(lambda k: net.init_carry(X, y, k))(keys))
-        Xs, ys = place_data(X, y)
-        out, out_stats = ssweep(carry1, Xs, ys)
-    finally:
-        bm.FORCE = None
+    mesh = make_mesh(2, 2, 2)
+    ssweep, place_carry, place_data = make_sharded_sweep(
+        net, cfg, mesh, feat_major=True
+    )
+    carry1 = place_carry(jax.vmap(lambda k: net.init_carry(X, y, k))(keys))
+    Xs, ys = place_data(X, y)
+    out, out_stats = ssweep(carry1, Xs, ys)
 
     np.testing.assert_allclose(
         np.asarray(ref.residual), np.asarray(out.residual), rtol=2e-4,
@@ -153,14 +146,12 @@ def test_fused_dense_sharded_matches_single_device():
 
 @pytest.mark.slow
 def test_fused_packed_hybrid_sharded_matches_single_device():
-    """VERDICT r3 #5c: the production recipe (packed 2-bit genotypes +
-    hybrid schedule + mass adaptation) with the fused packed kernel
-    (interpret mode) under the full mesh, upgraded from 'mse is finite' to
-    equivalence against the single-device run."""
+    """The production recipe (packed 2-bit genotypes + hybrid schedule +
+    mass adaptation) under the full mesh must match the single-device
+    run."""
     from rs_bann_tpu.group.grouping import UniformGrouping
     from rs_bann_tpu.io.bed import BedVM
     from rs_bann_tpu.models.data import pack_stacked
-    from rs_bann_tpu.ops import branch_mlp as bm
 
     G, n, m, h, C = 8, 64, 8, 4, 2
     bed = BedVM.random(n, G * m, seed=1)
@@ -179,27 +170,23 @@ def test_fused_packed_hybrid_sharded_matches_single_device():
         block_size=2, mass_adaptation=True, num_chains=C, seed=0,
     )
     keys = jax.random.split(jax.random.key(0), C)
-    bm.FORCE = "interpret"
-    try:
-        sweep = jax.jit(jax.vmap(net.make_sweep(cfg), in_axes=(0, None, None)))
-        carry0 = jax.vmap(
+    sweep = jax.jit(jax.vmap(net.make_sweep(cfg), in_axes=(0, None, None)))
+    carry0 = jax.vmap(
+        lambda k: net.init_carry(data.X, data.y, k, mass_adaptation=True)
+    )(keys)
+    ref, ref_stats = sweep(carry0, data.X, data.y)
+
+    mesh = make_mesh(2, 2, 2)
+    ssweep, place_carry, place_data = make_sharded_sweep(
+        net, cfg, mesh, packed_n=n
+    )
+    carry1 = place_carry(
+        jax.vmap(
             lambda k: net.init_carry(data.X, data.y, k, mass_adaptation=True)
         )(keys)
-        ref, ref_stats = sweep(carry0, data.X, data.y)
-
-        mesh = make_mesh(2, 2, 2)
-        ssweep, place_carry, place_data = make_sharded_sweep(
-            net, cfg, mesh, packed_n=n
-        )
-        carry1 = place_carry(
-            jax.vmap(
-                lambda k: net.init_carry(data.X, data.y, k, mass_adaptation=True)
-            )(keys)
-        )
-        Xs, ys = place_data(data.X, data.y)
-        out, out_stats = ssweep(carry1, Xs, ys)
-    finally:
-        bm.FORCE = None
+    )
+    Xs, ys = place_data(data.X, data.y)
+    out, out_stats = ssweep(carry1, Xs, ys)
 
     np.testing.assert_allclose(
         np.asarray(ref.residual), np.asarray(out.residual), rtol=2e-4,

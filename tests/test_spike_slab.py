@@ -1,6 +1,6 @@
 """Spike-and-slab branch selection (cfg.spike_slab).
 
-TPU extension over the reference (which has spike-and-slab style
+Extension over the reference (which has spike-and-slab style
 *initialization* sparsification only, branch_cfg_builder.rs:155-168, never a
 sampled inclusion indicator): a per-branch z with an exact collapsed
 conjugate Gibbs move on the linear-Gaussian output layer. Validated here:

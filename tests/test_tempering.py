@@ -1,4 +1,4 @@
-"""Parallel tempering tests (TPU extension; the reference has no multi-chain
+"""Parallel tempering tests (extension; the reference has no multi-chain
 capability at all — SURVEY.md §2.7)."""
 
 import pytest

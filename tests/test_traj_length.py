@@ -2,7 +2,7 @@
 
 The reference integrates a fixed number of leapfrog steps and computes the
 u-turn statistic only to log a warning (/root/reference/src/net/branch/
-branch_sampler.rs:551-592, 1281-1284). The TPU build adds randomized-length
+branch_sampler.rs:551-592, 1281-1284). This build adds randomized-length
 HMC ("jittered") and NUTS-style u-turn-adaptive nominal lengths ("uturn"),
 implemented by freezing the compiled fixed-length scan — validated here:
 
